@@ -1,8 +1,12 @@
 #!/usr/bin/env python
-"""Headline benchmark: end-to-end VO frames/s on one TPU chip.
+"""Headline benchmark: end-to-end VO frames/s on one GPU.
 
 Prints ONE JSON line:
-  {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
+  {"metric": ..., "value": N, "unit": ..., "vs_baseline": N,
+   "platform": ..., "device_kind": ..., "gpu_name": ..., "power_limit": ...}
+
+Exits non-zero without a frame rate when JAX finds no GPU: a CPU rate is
+not a measurement of this system.
 
 Workload: the full production per-frame pipeline at KITTI resolution
 (1241 x 376; config/kitti.yaml:13) on synthetic frames - TOED detection on
@@ -57,14 +61,12 @@ def measure_cpu_baseline(h: int, w: int) -> float:
     return secs
 
 
-def run_layout(seq, layout, n_frames):
-    """Warm up + guard + time one gate layout. Returns (fps, workload_dict)
-    on success or (None, error_str) if the workload guard trips. The
-    workload dict records the starvation state (mates vs max_mates,
-    pct_refined) and pose error vs the synthetic GT so the JSON is
-    self-describing about workload integrity (round-3 verdict item 8)."""
-    import dataclasses
-
+def run_workload(seq, n_frames):
+    """Warm up + guard + time the production steps. Returns
+    (fps, workload_dict) on success or (None, error_str) if the workload
+    guard trips. The workload dict records the starvation state (mates vs
+    max_mates, pct_refined) and pose error vs the synthetic GT so the JSON
+    is self-describing about workload integrity."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -72,7 +74,7 @@ def run_layout(seq, layout, n_frames):
     from edge_based_visual_odometry_tpu.config import VOConfig
     from edge_based_visual_odometry_tpu.models import pipeline as PL
 
-    cfg = dataclasses.replace(VOConfig(), gate_layout=layout)
+    cfg = VOConfig()
     stereo_step = PL.build_stereo_step(seq.rig, cfg, has_gt=False)
     temporal_step = PL.build_temporal_step(seq.rig, cfg, use_gt=False)
 
@@ -97,15 +99,15 @@ def run_layout(seq, layout, n_frames):
     tr_f1 = tr = jax.block_until_ready(temporal_step(
         kf.mates, kf.frame, cf.mates, cf.frame, *pred1, jnp.int32(42)))
 
-    # WORKLOAD GUARD: a TPU miscompile once silently zeroed all stereo
-    # matches, so the cascade ran empty and the "benchmark" timed a
-    # near-empty program (round-1 postmortem, benchmarks/NOTES.md). Never
-    # report a number without proving the full workload is loaded.
+    # WORKLOAD GUARD: a backend miscompile once silently zeroed all
+    # stereo matches, so the cascade ran empty and the "benchmark" timed a
+    # near-empty program. Never report a number without proving the full
+    # workload is loaded.
     n_mates = int(kf.mates.count)
     n_quads = int(tr.n_quads)
     if n_mates < 1000 or n_quads < 500:
         return None, (f"workload collapsed: mates={n_mates} quads={n_quads}"
-                      " (miscompile guard; see benchmarks/NOTES.md)")
+                      " (miscompile guard)")
 
     # frame 2 makes up half the timed loop: guard its workload too (a
     # content-dependent collapse on one rendered frame would otherwise
@@ -165,51 +167,26 @@ def run_layout(seq, layout, n_frames):
     return fps, workload
 
 
-def plan_layouts(pinned, default):
-    """Gate-layout attempt order: the pinned layout alone (bisect mode),
-    or the config default with "dense" as the self-healing fallback —
-    the flat compaction formulation has repeatedly been silently
-    miscompiled on TPU (benchmarks/NOTES.md; as of round 3 the default
-    IS dense for exactly that reason); if a non-dense default's workload
-    guard trips, the dense formulation still produces an honest number."""
-    if pinned:
-        return [pinned]
-    if default == "dense":
-        return ["dense"]
-    return [default, "dense"]
-
-
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
-    os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
-    from edge_based_visual_odometry_tpu.config import VOConfig
     from edge_based_visual_odometry_tpu.io import synthetic as S
+    from edge_based_visual_odometry_tpu.utils import device as DEV
+
+    try:
+        device = DEV.require_gpu()
+    except DEV.NoGPUError as e:
+        print(f"bench.py needs a GPU: {e}", file=sys.stderr)
+        return 2
 
     H, W = 376, 1241            # KITTI grayscale resolution
     n_frames = 12
 
     seq = S.make_sequence(n_frames=3, h=H, w=W)
-
-    # _VO_BENCH_LAYOUT pins a single layout (scripts/tpu_window.py bisect).
-    layouts = plan_layouts(os.environ.get("_VO_BENCH_LAYOUT"),
-                           VOConfig().gate_layout)
-
-    errors = []
-    fps = None
-    for layout in layouts:
-        fps, info = run_layout(seq, layout, n_frames)
-        if fps is not None:
-            break
-        errors.append(f"{layout}: {info}")
-        print(f"layout {layout} failed guard, falling back: {info}",
-              file=sys.stderr)
-
+    fps, info = run_workload(seq, n_frames)
     if fps is None:
         print(json.dumps({
             "metric": "kitti_res_frames_per_s_single_chip",
             "value": 0.0, "unit": "frames/s", "vs_baseline": 0.0,
-            "error": "; ".join(errors)}))
+            "error": info, **device}))
         return 1
 
     ref_frame_secs = whole_frame_baseline(H, W)
@@ -225,15 +202,13 @@ def main():
         "unit": "frames/s",
         "vs_baseline": round(fps / baseline_fps, 2),
         # the reference targets Brown's HPC nodes (reference
-        # CMakeLists.txt:124-175); its baseline here was measured on this
-        # host's 4 cores, so vs_baseline overstates the gap vs the
+        # CMakeLists.txt:124-175); its baseline here was measured on a
+        # 4-core host, so vs_baseline overstates the gap vs the
         # reference's intended hardware - scale by its core count
         "baseline_hw": "reference binary, 4-core host CPU (OpenMP)",
-        "layout": layout,
         "workload": info,
+        **device,
     }
-    if errors:
-        result["note"] = "fell back to gate_layout=dense; " + "; ".join(errors)
     print(json.dumps(result))
     return 0
 

@@ -1,19 +1,18 @@
 #!/usr/bin/env python
-"""Capacity-starvation sweep at KITTI resolution (round-3 verdict item 2).
+"""Capacity-starvation sweep at KITTI resolution.
 
 The reference keeps EVERY mate/candidate in dynamically-sized vectors
-(/root/reference/include/Dataset.h:180-289) and photometrically refines
-every candidate (/root/reference/src/Stereo_Matches.cpp:1290-1358). Our
-fixed-shape capacities bind at KITTI scale (measured round 2: ~24k final
-mates vs max_mates=8192, 91k GN inputs vs max_refine_pairs=65536, quad
-slots ~89% occupied at max_quad_candidates=24). This sweep measures what
-that starvation costs - fps AND workload quality per capacity point - so
-the defaults can be chosen from data.
+(reference include/Dataset.h:180-289) and photometrically refines every
+candidate (reference src/Stereo_Matches.cpp:1290-1358). Our fixed-shape
+capacities bind at KITTI scale when they are set low (~24k final mates,
+~91k GN inputs per frame). This sweep measures what each capacity point
+costs - frames/s AND workload quality - so the defaults can be chosen
+from data.
 
 Each point reports: frames/s, mates (vs cap), GN-input pairs (vs budget,
 = % refined), quads, inlier count/ratio.
 
-Run on an otherwise-idle TPU:
+Run on an otherwise-idle GPU:
     python benchmarks/capacity_sweep.py [--points NAME ...]
 Results are appended to benchmarks/capacity_sweep_results.jsonl.
 """
@@ -29,10 +28,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 POINTS = {
-    # name -> VOConfig overrides (on top of defaults).
-    # max_mates=32768 does NOT fit HBM (measured: 18.30G vs 15.75G - the
-    # temporal gather/patch buffers scale with M), so 16k/24k are the
-    # feasible mate points.
+    # name -> VOConfig overrides (on top of defaults). The temporal
+    # gather/patch buffers scale with max_mates, so the mate points are
+    # also memory points.
     "default": {},
     "pose32k": {"max_pose_quads": 32768},
     "quads48": {"max_quad_candidates": 48},
@@ -43,11 +41,8 @@ POINTS = {
     "combo16k": {"max_mates": 16384, "max_refine_pairs": 131072,
                  "gn_phase2_budget": 32768, "max_quad_candidates": 48,
                  "max_pose_quads": 32768},
-    # candidate round-4 default: reference keep-everything semantics
-    # (mates < cap, 100% refined) + the quad/pose capacities combo16k
-    # showed win on pose error. Compiles within HBM only after the
-    # attribute-major grid layout (ops/grid.py). NOTE: these ARE the
-    # defaults since round 4, so "combo24k" == "default" now.
+    # reference keep-everything semantics (mates < cap, 100% refined)
+    # + the quad/pose capacities combo16k showed win on pose error.
     "combo24k": {"max_mates": 24576, "max_refine_pairs": 131072,
                  "gn_phase2_budget": 32768, "max_quad_candidates": 48,
                  "max_pose_quads": 32768},
@@ -58,34 +53,31 @@ POINTS = {
     "cq32": {"max_quad_candidates": 32},
     # tighter still: radius 12, slots 144
     "r12": {"temporal_grid_radius_prod": 12.0, "quad_gather_slots_prod": 144},
-    # GN phase tuning at the honest budgets (trace: GN ~390 of 1117 ms)
+    # GN phase tuning at the keep-everything budgets
     "p1_2": {"gn_phase1_iters": 2},
     "p2_16k": {"gn_phase2_budget": 16384},
     "p1_2_p2_16k": {"gn_phase1_iters": 2, "gn_phase2_budget": 16384},
-    # round-5 headroom arm (verdict item 6): does the bulletproof
-    # max_mates == max_edges capacity (mates can never truncate since
-    # mates <= left edge count) cost acceptable temporal-step time?
+    # headroom arm: does the never-truncate max_mates == max_edges
+    # capacity (mates <= left edge count) cost acceptable temporal-step
+    # time?
     "mates32k": {"max_mates": 32768},
-    # round-5 GN tile arm: T=40 -> 32 cuts the sampling einsum's T*U
+    # GN tile arm: T=40 -> 32 cuts the sampling einsum's T*U
     # contraction 0.64x but shrinks the GN travel bound from +-5.2 to
     # +-2.2 px (quality-gated: watch pose errors + inlier ratio)
     "tile32": {"gn_tile": 32},
-    # round-5 flat temporal NCC/desc gates (work scales with occupancy)
+    # flat temporal NCC/desc gates (work scales with occupancy)
     "tflat": {"temporal_gate_layout": "flat"},
-    # round-5 split-weight bf16 GN value sampling (quality-gated: on the
+    # split-weight bf16 GN value sampling (quality-gated: on the
     # FLOAT synthetic bench frames this also rounds tiles to bf16, a
     # harder test than the integer-valued production PNG path)
     "wsplit": {"gn_weight_split": True},
-    # round-5 stereo flat-gate retry: the r3 miscompile that forced
-    # gate_layout=dense may not reproduce on the current compiler +
-    # restructured program (sortfree/one-hot); r3 measured flat at
-    # +30% before the incident. Workload guards still protect.
+    # stereo flat gates (gate_layout A/B; the workload guards catch a
+    # miscompile, scripts/check_parity.py --layout=flat confirms)
     "sflat": {"gate_layout": "flat"},
-    # round-5 late re-tunes at the 2.155 baseline (chunk landscape
-    # changed after the gather/sort rewrites)
+    # chunk re-tunes
     "sc1024": {"sample_chunk": 1024},
     "gc1024": {"gn_chunk": 1024},
-    # round-5 winning combination candidates
+    # combination candidates
     "r5combo": {"gn_phase1_iters": 2, "gn_phase2_budget": 16384,
                 "gn_tile": 32},
     "r5combo_flat": {"gn_phase1_iters": 2, "gn_phase2_budget": 16384,
@@ -183,7 +175,6 @@ def main():
     ap.add_argument("--points", nargs="*", default=list(POINTS))
     ap.add_argument("--n_frames", type=int, default=8)
     args = ap.parse_args()
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
     out_path = os.path.join(REPO, "benchmarks",
                             "capacity_sweep_results.jsonl")
     for name in args.points:

@@ -5,7 +5,7 @@
 // the Point2d POD inside its Edge struct (include/toed/cpu_toed.hpp:28).
 //
 // This is NOT product code - it exists so tests/test_toed_ref_parity.py
-// can diff our TPU detector against the actual compiled reference kernel
+// can diff our detector against the actual compiled reference kernel
 // instead of a hand-transcribed oracle (VERDICT round 1, item 2).
 #pragma once
 

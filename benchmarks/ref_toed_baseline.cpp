@@ -2,7 +2,7 @@
 // cost: reproduces the computational STRUCTURE of the reference
 // (per-pixel quadruple tap loops at 4 half-pixel phases in double
 // precision under OpenMP, /root/reference/src/toed/cpu_toed.cpp:122-582)
-// so the TPU framework's bench can report an honest vs-CPU factor.
+// so the framework's bench can report an honest vs-CPU factor.
 // The reference publishes no numbers (BASELINE.md), so we measure this
 // equivalent workload on the local host.
 //

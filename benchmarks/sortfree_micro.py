@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Microbenchmark: ops/sortfree.py vs the XLA sort/top_k/cumsum ops they
-replace, at the production shapes the round-5 trace flagged. Run on an
-otherwise-idle TPU:  python benchmarks/sortfree_micro.py
+replace, at the production shapes of the cascade. Run on an
+otherwise-idle GPU:  python benchmarks/sortfree_micro.py
 """
 import os
 import sys
@@ -9,7 +9,6 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
 
 import jax
 import jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""Runtime configuration for the TPU edge-VO framework.
+"""Runtime configuration for the edge-VO framework.
 
 The reference keeps ~50 compile-time ``#define`` thresholds in
 ``include/definitions.h:16-86`` plus a per-dataset YAML schema parsed by
@@ -84,7 +84,7 @@ class VOConfig:
     # `ransac_prescore_quads` quads of the PROSAC ordering, then only the
     # best `ransac_prescore_keep` hypotheses are scored on the full quad
     # set (the winner's inlier count stays a full-set count). ~6x less
-    # scoring work than the (K, Q) matrix at the round-4 budgets; the
+    # scoring work than the (K, Q) matrix at the default budgets; the
     # reference's sequential loop with adaptive termination likewise
     # scores only a fraction of hypotheses exhaustively
     # (MotionTracker.cpp:196-248). 0 disables (exact full scoring).
@@ -116,44 +116,39 @@ class VOConfig:
     # iterations. 0 disables (single-phase, identical results).
     gn_phase1_iters: int = 2
     gn_phase2_budget: int = 16384
-    # ^ round-5 sweep (capacity_sweep r5combo, 2026-08-20): phase1 2
-    # iters + 16k phase-2 budget + tile 32 measured 1.244 fps vs 1.001
-    # at (4, 32k, 40) with EQUAL-OR-BETTER pose quality (f1 0.019 deg /
-    # 1.9 mm vs 0.056 / 3.3; pct_refined 1.0 both)
+    # ^ phase1 2 iters + 16k phase-2 budget + tile 32 kept pose quality
+    # equal to or better than (4, 32k, 40) in a capacity sweep; the
+    # speed side of that choice is untuned for the GPU
     gn_tile: int = 32               # GN sampling tile (travel bound, px;
-    # 32 -> stride 8, window +-11 = patch extent 8.75 + ~2.2 px travel;
-    # the r5combo sweep row shows no quality cost vs 40)
+    # 32 -> stride 8, window +-11 = patch extent 8.75 + ~2.2 px travel)
     # 2-pass split-weight bf16 value sampling in the GN refiners
     # (ops/tiled_sampling.bilinear_sample_tiles weight_split): exact to
     # ~0.003 gray for integer-valued (uint8-sourced) images - the
     # production PNG path; keep False for non-integer sources (host-
     # undistorted EuRoC frames)
     gn_weight_split: bool = True
-    # ^ round-5 sweep: 1.301 vs 1.244 fps at comparable quality even on
-    # FLOAT-valued frames (worst pose delta ~2 mm); exact to ~0.003 gray
-    # on the integer-valued production PNG path
+    # ^ comparable pose quality even on FLOAT-valued frames (worst pose
+    # delta ~2 mm); exact to ~0.003 gray on the integer-valued production
+    # PNG path
 
     # --- GT supervision path (Stereo_Matches.cpp:146,228) ---
     gt_orient_exclusion_deg: float = 4.0       # omit edges near 0/±180 deg
     gt_pair_dist_tol: float = 1.0              # px (Stereo_Matches.cpp:228)
     gt_pair_orient_tol: float = 5.0            # deg (Stereo_Matches.cpp:228)
 
-    # --- Fixed-shape capacities (TPU-specific; no reference equivalent:
-    #     the reference uses dynamically-sized std::vectors) ---
-    # Round-4 capacity defaults: chosen from the measured TPU capacity
-    # sweep (benchmarks/capacity_sweep_results.jsonl, "combo24k" row) so
-    # the production workload matches the reference's keep-everything
-    # semantics (unbounded candidate storage, Dataset.h:180-289; refine
-    # every survivor, Stereo_Matches.cpp:1290-1358). At KITTI resolution
-    # (~24.2k edges/image): final mates 23,948 < 24,576 (nothing
-    # truncated), GN input 91,291 < 131,072 (100% refined). Quality vs
-    # the old starved defaults (8k mates, 72% refined): pose error f1
-    # (0.535 deg, 47 mm) -> (0.042 deg, 4.2 mm), f2 (0.065 deg, 5 mm) ->
-    # (0.024 deg, 2.5 mm). Raising max_pose_quads is only safe TOGETHER
-    # with these (alone on starved mates it admits ambiguous quads and
-    # degrades pose 10x - NOTES.md round 4). Fits HBM with 8.2 GiB
-    # headroom after the attribute-major grid/patch layouts
-    # (benchmarks/hbm_probe.py).
+    # --- Fixed-shape capacities (no reference equivalent: the reference
+    #     uses dynamically-sized std::vectors) ---
+    # Sized so the production workload matches the reference's
+    # keep-everything semantics (unbounded candidate storage,
+    # Dataset.h:180-289; refine every survivor,
+    # Stereo_Matches.cpp:1290-1358). At KITTI resolution (~24.2k
+    # edges/image): final mates ~23,950 < 24,576 (nothing truncated), GN
+    # input ~91k < 131,072 (100% refined). Quality vs starved budgets (8k
+    # mates, 72% refined): pose error f1 (0.535 deg, 47 mm) -> (0.042 deg,
+    # 4.2 mm). Raising max_pose_quads is only safe TOGETHER with these
+    # (alone on starved mates it admits ambiguous quads and degrades pose
+    # 10x). The capacities and chunk sizes below were chosen for a 16 GiB
+    # device and are untuned for an 80 GB GPU.
     max_edges: int = 32768          # per-image TOED edge capacity
     max_candidates: int = 32        # per-left-edge stereo candidate capacity
     gather_slots: int = 160         # raw grid-gather slots before compaction
@@ -165,15 +160,12 @@ class VOConfig:
     gate_chunk: int = 8192          # pairs per chunk in the flat gate stages
     gate_layout: str = "dense"      # "dense" ((N, C) row chunks) | "flat"
     # (active-pair list) for the desc/NCC gate stages; identical results
-    # on CPU and at small shapes. DEFAULT IS DENSE: the flat descriptor
-    # gate ("flat"/"flat4") is mis-fused by the current TPU compiler at
-    # production shapes (376x1241, default budgets) - the whole cascade
-    # silently collapses to zero while CPU stays correct; bisect history
-    # in benchmarks/NOTES.md round 3. "flat5" (NCC-only flat) compiles
-    # correctly but measured no faster than dense (1.387 vs 1.388 fps),
-    # so dense is both the safe and the simple choice. "flat4"/"flat5"
-    # apply the flat layout to ONLY the descriptor (4) or NCC (5) stage -
-    # single-stage bisect arms (scripts/bisect_flat.py).
+    # for live slots. "flat4"/"flat5" apply the flat layout to ONLY the
+    # descriptor (4) or NCC (5) stage. Dense is the default because a
+    # flat descriptor gate was once mis-fused by a backend compiler at
+    # production shapes; which layout is faster on a GPU is not measured
+    # yet (scripts/check_parity.py --layout=... checks a layout's
+    # correctness on the card).
     # Temporal NCC/desc gate layout: "dense" ((M, Cq) full computation) |
     # "flat" (compact active pairs first; work scales with the ~20%
     # post-orientation occupancy). Identical results for live slots;
@@ -183,18 +175,18 @@ class VOConfig:
     max_quad_candidates: int = 32   # per-KF-mate temporal candidate capacity
     # (sized 48 for the reference's radius-30 window; the prediction-
     # centered radius-16 production window has ~4x less ambiguity, and
-    # the sweep shows Cq=32 keeps Cq=48's pose quality at +9% fps while
-    # Cq=24 starts to cost accuracy - capacity_sweep cq24/cq32 rows)
+    # Cq=32 keeps Cq=48's pose quality while Cq=24 starts to cost
+    # accuracy)
     quad_gather_slots: int = 576    # raw temporal grid-gather slots (total)
-    # Production temporal gather (TPU-native deviation, README table):
+    # Production temporal gather (deviation, README table):
     # the reference searches radius 30 around the KF location because its
     # window must absorb the FULL inter-frame motion
     # (Temporal_Matches.cpp:184). The production pipeline has a
     # constant-velocity prediction (pipeline.py), so the window only
     # needs to absorb PREDICTION ERROR (acceleration-bounded, a few px)
     # - centering the gather at the projected prediction lets the radius
-    # and slot count shrink ~4x (the (M, S) raw-window stage measured
-    # 157+ ms of the 941 ms temporal step at S=576; NOTES round 4).
+    # and slot count shrink ~4x, and with them the (M, S) raw-window
+    # stage, the largest part of the temporal step that scales with S.
     # Eval mode (use_gt=True) always uses reference semantics for the
     # stage-table parity harness. The pipeline runs its FIRST temporal
     # step (identity prediction, error = full motion) on a bootstrap
@@ -204,17 +196,14 @@ class VOConfig:
     quad_gather_slots_prod: int = 192          # raw slots (prediction mode)
     max_pose_quads: int = 32768     # flat quad budget for RANSAC scoring
     sample_chunk: int = 512         # candidates per chunk in tiled sampling
-    # (swept on v5e at KITTI size: 512 beats 1024/2048/4096/8192 - smaller
-    # serial chunks pipeline better against the atlas row-gathers)
+    # (bounds the working set of each serial chunk; untuned for the GPU)
     gn_phase1_chunk: int = 4096     # candidates per chunk in GN PHASE 1:
     # fixed iteration count -> no convergence-coupling penalty for wide
     # chunks, and 131072/512 = 256 serial chunks was pure overhead
     # (ops/gauss_newton._two_phase). Phase 2 keeps gn_chunk.
     gn_chunk: int = 512             # candidates per chunk in the GN refiners
-    # (isolated GN strongly prefers 2048 - 34 vs 154 ms at 65k pairs - but
-    # in-cascade the active set is small and 512 measured equal-or-better:
-    # 604 vs 610 ms stereo; kept as a separate knob for large-budget runs)
-                                    # (bounds tile-buffer HBM working set)
+    # (bounds the tile-buffer working set; isolated GN prefers wider
+    # chunks, in-cascade the active set is small; untuned for the GPU)
     cell_capacity: int = 16         # per-grid-cell edge capacity
 
     # --- Descriptor (SIFT replacement; deliberate deviation, see
@@ -230,15 +219,9 @@ class VOConfig:
     desc_clip: float = 0.2
     desc_scale: float = 512.0
 
-    # --- Diagnostics ---
-    # Prepend 3 extra rows to the stereo metrics array (raw gather-window
-    # occupancy, row_mask count, epi<100px count) for bisecting cascade
-    # collapses (scripts/bisect_flat.py). Changes the metrics row count,
-    # so the stage tables no longer align with STAGE_NAMES - debug only.
-    debug_preepi_metrics: bool = False
 
     def __post_init__(self):
-        # a perf-bisect knob that silently accepts garbage defeats its
+        # a layout knob that silently accepts garbage defeats its
         # purpose: anything != "flat" would quietly select "dense"
         if self.gate_layout not in ("flat", "dense", "flat4", "flat5"):
             raise ValueError(

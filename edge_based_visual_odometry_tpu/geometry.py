@@ -140,8 +140,9 @@ def epipolar_lines(F: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
 
     Written elementwise on purpose: the obvious
     ``einsum("ij,...j->...i", F, concat([xy, ones]))`` formulation
-    miscompiles on TPU when F is a closed-over constant — the constant
-    column (the `c` coefficient, F @ [0,0,1]) is silently dropped,
+    has been miscompiled by a backend compiler when F is a closed-over
+    constant — the constant column (the `c` coefficient, F @ [0,0,1]) was
+    silently dropped,
     which zeroes every epipolar gate downstream. Keep this as scalar
     multiply-adds; do NOT "simplify" back to a matmul.
     """
@@ -256,7 +257,7 @@ def two_view_linear_triangulation(gamma1_px: jnp.ndarray, gamma2_px: jnp.ndarray
     A^T A via Jacobi SVD. Here we solve the equivalent inhomogeneous 3x3
     normal system for the finite point (last coordinate fixed to 1), which
     is algebraically identical for non-degenerate geometry and maps to
-    batched dense linear algebra on TPU.
+    batched dense linear algebra on the device.
     Inputs are (..., 2) pixel coordinates.
     """
     g1 = pixel_to_ray(K1_inv, gamma1_px)

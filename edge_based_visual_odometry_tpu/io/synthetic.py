@@ -169,8 +169,8 @@ def make_sequence(n_frames: int = 3, h: int = 240, w: int = 320,
 
     texture: "analytic" (tanh-ridge closed form) or a real-photograph
     name ("china" / "flower" / "grace_hopper") - real image statistics
-    over the exact synthetic geometry (the round-4 verdict's stand-in
-    for unfetchable real datasets; see docs/REAL_DATA.md)."""
+    over the exact synthetic geometry (a stand-in for unfetchable real
+    datasets; see docs/REAL_DATA.md)."""
     import functools
     texture_fn = (None if texture == "analytic"
                   else functools.partial(_photo_texture, which=texture))
@@ -223,18 +223,18 @@ def make_corridor_sequence(n_frames: int = 100, h: int = 376,
     """Long forward-motion sequence through a textured corridor.
 
     `make_sequence`'s fixed slanted planes only stay in view for a few
-    frames; this scene is built for 100+ frame trajectories (the round-3
-    stand-in for the blocked KITTI-00 gate): ground plane, two slightly
-    converging side walls and a receding far wall, textured over their
-    IN-PLANE coordinates, with the camera advancing `step` m/frame down
-    +Z under gentle yaw/pitch sway and lateral drift. KITTI-like
+    frames; this scene is built for 100+ frame trajectories (a stand-in
+    for the KITTI-00 sequence, which cannot be fetched): ground plane, two
+    slightly converging side walls and a receding far wall, textured over
+    their IN-PLANE coordinates, with the camera advancing `step` m/frame
+    down +Z under gentle yaw/pitch sway and lateral drift. KITTI-like
     focal length so image motion magnitudes are realistic.
 
     The focal length scales with the output width (fx = 718 * w / 1241):
     a fixed fx=718 at reduced smoke resolutions gives a razor-thin FOV
     that sees only the fronto-parallel far wall - the degenerate
     low-parallax configuration `_render`'s docstring warns about - so
-    small smoke runs would judge an ill-conditioned scene (ADVICE r3).
+    small smoke runs would judge an ill-conditioned scene.
     """
     f = 718.0 * w / 1241.0
     cam = CameraConfig(width=w, height=h, fx=f, fy=f,

@@ -4,7 +4,7 @@ NEW CAPABILITY relative to the reference: the reference tracks against a
 single keyframe (frame 0 only, src/Pipeline.cpp:133-137) and has no
 window, no map, no BA (SURVEY.md §2.1 'multi-window BA does not exist in
 the reference at all'). This module adds the windowed-refinement layer the
-BASELINE.json north star demands, designed TPU-first:
+BASELINE.json north star demands, designed for fixed-shape device code:
 
   - Fixed-shape problem: K poses, L landmarks, O observations with masks.
   - One Gauss-Newton/LM iteration = dense batched einsums:

@@ -1,6 +1,6 @@
 """Relative pose from quad pairs: constraint-gated 2-point RANSAC.
 
-TPU-native re-design of the reference MotionTracker
+A fixed-shape re-design of the reference MotionTracker
 (src/MotionTracker.cpp:28-253). The reference runs a sequential RANSAC
 loop with rand() sampling, 4 rigid-invariance constraint gates, a
 closed-form triad-alignment pose per 2-quad sample, O(N) reprojection
@@ -88,8 +88,8 @@ def lift_quads(kf: StereoMates, quads: TemporalQuads, rig: RigArrays,
     # PROSAC ordering: (row candidate count asc, row, slot) - ref :92-103.
     # Only the first Q = max_pose_quads entries are consumed, and the key's
     # class domain (the row candidate count) is tiny, so a stable counting
-    # sort replaces the 786k-key top_k (which cost ~54 ms as an XLA sort in
-    # the round-5 trace; ops/sortfree.counting_sort_order). Slots past
+    # sort replaces a 786k-key top_k (ops/sortfree.counting_sort_order).
+    # Slots past
     # n_sel point at flat index 0 and are masked below via n_sel.
     from edge_based_visual_odometry_tpu.ops import sortfree as SF
     Qsel = min(cfg.max_pose_quads, M * Cq)
@@ -113,7 +113,7 @@ def lift_quads(kf: StereoMates, quads: TemporalQuads, rig: RigArrays,
     if not use_gt:
         tp = jnp.zeros_like(tp)
     # The PROSAC sort puts valid quads first; truncate the flat list to the
-    # pose-quad budget so RANSAC scoring stays HBM-bounded (valid count is
+    # pose-quad budget so RANSAC scoring stays memory-bounded (valid count is
     # ~1-2 per KF row; overflow beyond the budget is dropped). The n_sel
     # gate kills the counting sort's zero-filled tail slots (which point
     # at flat index 0, a possibly-valid entry).
@@ -232,7 +232,7 @@ def estimate_pose(pq: PoseQuads, rig: RigArrays, cfg: VOConfig,
     R, t = _pose_from_pair(*samples)
 
     # --- scoring (ref :155-173): chunked over hypotheses so the (K, Q)
-    # reprojection matrix never materializes in HBM ---
+    # reprojection matrix never materializes in device memory ---
     KG = jnp.einsum("ij,kjl->kil", rig.K_left, R)   # (K, 3, 3)
     Kt = jnp.einsum("ij,kj->ki", rig.K_left, t)     # (K, 3)
     chunk = 256

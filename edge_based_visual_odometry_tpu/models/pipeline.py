@@ -72,9 +72,9 @@ def _stereo_step_jit(cfg: VOConfig, has_gt: bool,
     not a closed-over constant: the compiled program is rig-independent
     for rigs sharing the image size / distortion flags / gather band, so
     e.g. the longseq corridor rig reuses the bench rig's cached
-    executables instead of paying a ~5 min recompile per new camera
-    (round-5 operability). The lru_cache makes the reuse in-process too
-    (a fresh @jax.jit object per build would re-trace)."""
+    executables instead of paying a full recompile per new camera. The
+    lru_cache makes the reuse in-process too (a fresh @jax.jit object per
+    build would re-trace)."""
     @jax.jit
     def step(left, right, rig_arrays, dist_l, dist_r,
              disparity=None, occlusion=None):
@@ -131,7 +131,10 @@ def build_stereo_step(rig: StereoRig, cfg: VOConfig, has_gt: bool,
     if has_gt:
         return lambda l, r, disparity=None, occlusion=None: step(
             l, r, rig_arrays, dist_l, dist_r, disparity, occlusion)
-    return lambda l, r: step(l, r, rig_arrays, dist_l, dist_r)
+    # a partial, not a lambda: `.func` / `.keywords` let callers lower and
+    # compile the jitted program ahead of time (memory analysis)
+    return functools.partial(step, rig_arrays=rig_arrays, dist_l=dist_l,
+                             dist_r=dist_r)
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,7 +165,7 @@ def build_temporal_step(rig: StereoRig, cfg: VOConfig, use_gt: bool):
     for quad prediction (GT in eval mode, predicted in production)."""
     rig_arrays = RigArrays.from_rig(rig)
     step = _temporal_step_jit(cfg, use_gt)
-    return lambda *a: step(*a, rig_arrays)
+    return functools.partial(step, rig_a=rig_arrays)
 
 
 @dataclasses.dataclass
@@ -248,7 +251,7 @@ class VOPipeline:
             if self.keyframe_policy not in ("every_frame", "adaptive"):
                 # ValueError, not assert: an assert is silently skipped
                 # under python -O and surfaces as a bare AssertionError
-                # traceback otherwise (ADVICE r3)
+                # traceback otherwise
                 raise ValueError(
                     "windowed BA (ba_window >= 2) requires a re-keyframing "
                     f"policy, got keyframe_policy={self.keyframe_policy!r}")
@@ -333,7 +336,7 @@ class VOPipeline:
             # search: vel = previous frame -> current frame motion. The
             # earlier identity reset made every_frame runs predict
             # zero motion, so the 30 px gather radius had to absorb the
-            # full inter-frame motion (ADVICE r1).
+            # full inter-frame motion.
             vel = geom.relative_pose(self.prev_cam_pose, cam_pose)
             self.prev_cam_pose = cam_pose
             if self._should_rekeyframe(tr):

@@ -1,6 +1,6 @@
 """Stereo edge matching: the 11-stage filter cascade as masked tensor passes.
 
-TPU-native re-design of the reference's Stereo_Matches engine
+A fixed-shape re-design of the reference's Stereo_Matches engine
 (src/Stereo_Matches.cpp:1360-1540 orchestration). The reference threads
 dynamically-sized candidate vectors through erase-based filters; here the
 state is one fixed-shape (N_left, MAX_CAND) candidate tensor with a
@@ -172,11 +172,11 @@ def _flatten_active(cmask, max_pairs: int):
     pos = SF.cumsum_i32(flat) - 1
     lin = jnp.arange(N * C, dtype=jnp.int32)
     # distinct OOB targets for dropped entries: unique_indices=True is a
-    # promise, and duplicated (even dropped) indices are UB on TPU.
-    # Inactive targets start at N*C (not max_pairs): active overflow
-    # positions pos in [max_pairs, N*C) would collide with max_pairs+lin
-    # whenever actives exceed capacity, which the measured KITTI workload
-    # does (91k BNB-SIFT survivors vs 65536; benchmarks/NOTES.md).
+    # promise, and a duplicated (even dropped) index is undefined
+    # behaviour on every backend. Inactive targets start at N*C (not
+    # max_pairs): active overflow positions pos in [max_pairs, N*C) would
+    # collide with max_pairs+lin whenever actives exceed capacity, which
+    # the KITTI-resolution workload can do at smaller budgets.
     tgt = jnp.where(flat, pos, N * C + lin)
     slot_of = jnp.zeros((max_pairs,), jnp.int32).at[tgt].set(
         lin, mode="drop", unique_indices=True)
@@ -216,7 +216,7 @@ def derive_gather_band(rig, cfg: VOConfig) -> float:
     with (n, t) the line's unit normal/direction. Maximized over a host
     grid of image points. Rectified rigs evaluate to the old 4.0 band;
     verged rigs (e.g. EuRoC's real extrinsics) widen so sloped/offset
-    epipolar geometry keeps full recall (round-1 ADVICE finding).
+    epipolar geometry keeps full recall.
 
     rig: config.StereoRig (host).
     """
@@ -382,15 +382,9 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
             jnp.sum(jnp.where(has_c, prec, 0.0)) / rows_w,
             jnp.sum(jnp.where(has_c, n_c, 0)) / rows_w]))
 
-    if cfg.debug_preepi_metrics:
-        record_raw(gmask)          # raw gather-window occupancy (debug)
-        record_raw(row_mask[:, None])
-
     # stage 1: epipolar line distance (ref :381-419)
     g_epi = geom.point_line_distance(epi[:, None, :],
                                      jnp.stack([g_x, g_y], -1))
-    if cfg.debug_preepi_metrics:
-        record_raw(gmask & (g_epi < 100.0) & row_mask[:, None])
     gmask = gmask & (g_epi < cfg.epipolar_line_dist_thresh) & row_mask[:, None]
     record_raw(gmask)
 
@@ -471,15 +465,14 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
         active=right_edges.valid)
 
     # ---- stage 4: descriptor gate (ref :691-787). Two layouts:
-    #   "flat" (default): post-orientation ambiguity averages ~11 of C=32
-    #     slots at KITTI resolution, so dense (N, C) work is ~3x padding.
-    #     Compact active (row, slot) pairs to a flat list (as the GN stage
-    #     does); cost scales with measured pairs, chunk skipping frees the
+    #   "dense" (default): the row-chunked (N, C) formulation.
+    #   "flat": post-orientation ambiguity averages ~11 of C=32 slots at
+    #     KITTI resolution, so dense (N, C) work is ~3x padding. Compact
+    #     active (row, slot) pairs to a flat list (as the GN stage does);
+    #     cost scales with measured pairs, chunk skipping frees the
     #     budget tail.
-    #   "dense": the row-chunked (N, C) formulation, kept as a one-flag
-    #     fallback/bisect arm for TPU-compiler issues (the remote compiler
-    #     has silently miscompiled cascade stages before; NOTES.md).
-    # Results are identical for live slots under both layouts. ----
+    # Results are identical for live slots under both layouts; which is
+    # faster on a GPU is not measured yet. ----
     from edge_based_visual_odometry_tpu.ops import tiled_sampling as TS
 
     if record_distributions:
@@ -528,10 +521,10 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
     snap_ambiguity("sift", state)
 
     # ---- patches for NCC (get_edge_patches, utility.cpp:182-212) ----
-    # Patches are stored FLAT (N, 2*P*P) = [plus | minus]: a (N, 2, 49)
-    # stack pads its (2, 49) minor dims to (8, 128) TPU tiles (10.4x), so
-    # every downstream per-candidate gather moved 10x the bytes; flat
-    # (N, 98) pads only 98 -> 128 lanes (1.3x).
+    # Patches are stored FLAT (N, 2*P*P) = [plus | minus]: one contiguous
+    # 98-wide row per edge, so each downstream per-candidate gather moves
+    # one row instead of two short ones (and no tiled layout pads a
+    # size-2 minor dimension).
     pp_n = cfg.patch_size * cfg.patch_size
     lp_p, lp_m, lok_p, lok_m = P.edge_patches_tiled(
         frame.left, lx, ly, lt, cfg.patch_size, cfg.orthogonal_shift_mag,
@@ -606,8 +599,7 @@ def match_stereo(left_edges: EdgeList, right_edges: EdgeList,
     epi_dir = jnp.stack([-state.epi_line[:, 1], state.epi_line[:, 0]], -1)
     epi_dir = epi_dir / jnp.linalg.norm(epi_dir, axis=-1, keepdims=True)
     # pack the per-row and per-slot operands so the flat list is fetched
-    # with TWO row gathers instead of six narrow ones (each narrow
-    # 131072-element gather cost ~10-20 ms in-context; round-5 trace)
+    # with TWO row gathers instead of six narrow 131072-element ones
     row_pack = jnp.stack([state.lx, state.ly, state.ltheta,
                           epi_dir[:, 0], epi_dir[:, 1]], -1)[rows]
     cand_pack = jnp.stack([state.cx, state.cy],
@@ -757,10 +749,9 @@ def _finalize(state: StereoState, frame: FrameData, rig: RigArrays,
     return StereoMates(
         left_x=z(lx), left_y=z(ly), left_theta=z(lt),
         right_x=z(rx), right_y=z(ry), right_theta=z(rt),
-        # NOTE: bf16 patch storage was tried for the temporal NCC gathers
-        # and measured 5% slower end-to-end on v5e (combined with the
-        # argsort cap-rank; sub-32-bit gathers + upcast lose more than
-        # the halved HBM traffic saves) - patches stay f32.
+        # patches stay f32: bf16 storage would halve the temporal NCC
+        # gather bytes but add an upcast per gather; not measured on a
+        # GPU yet
         left_patches=l_patches[row_of] * valid[:, None],
         right_patches=r_patches * valid[:, None],
         left_patch_ok=l_patch_ok[row_of] & valid[:, None],

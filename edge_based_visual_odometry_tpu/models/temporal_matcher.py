@@ -1,6 +1,6 @@
 """Temporal quad matching: KF stereo mates <-> CF stereo mates.
 
-TPU-native re-design of the reference's Temporal_Matches engine
+A fixed-shape re-design of the reference's Temporal_Matches engine
 (src/Temporal_Matches.cpp). A "quad" associates one keyframe stereo edge
 mate with one current-frame stereo edge mate (4 edges of one 3D point).
 The reference builds pointer-linked Candidate_Quad_Entry lists; here the
@@ -161,7 +161,7 @@ def match_temporal(kf: StereoMates, cf: StereoMates,
     v_or = geom.orientation_diff_deg(th_r[:, None], v_at[5])
     # NOTE: no cf.valid[vidx] term - query_sorted_grid_attrs guarantees
     # masked slots are valid entries (invalid keys sort past every
-    # window; the pred gather cost ~39 ms in the round-5 trace)
+    # window), so a pred gather over the window would be redundant
     vmask = (vmask
              & (v_dl < cfg.dist_to_gt_thresh_quads)
              & (v_dr < cfg.dist_to_gt_thresh_quads)
@@ -188,7 +188,7 @@ def match_temporal(kf: StereoMates, cf: StereoMates,
     # (ref :184). Production mode centers the window at the PREDICTED
     # projections (pl, pr) instead: the window then only absorbs
     # prediction error (acceleration-bounded), so radius and slots
-    # shrink ~4x (TPU deviation, see VOConfig.temporal_gather_mode). ----
+    # shrink ~4x (deviation, see VOConfig.temporal_gather_mode). ----
     if use_gt or cfg.temporal_gather_mode == "reference":
         r_g = cfg.temporal_grid_radius
         n_slots = cfg.quad_gather_slots
@@ -272,10 +272,10 @@ def match_temporal(kf: StereoMates, cf: StereoMates,
                        if use_gt else _count_row(qq.cmask))
 
     # ---- NCC + descriptor gates, both sides (ref :416-515) ----
-    # ONE wide row gather for both sides: TPU gather cost is dominated by
-    # per-row overhead at these row widths, so fetching the concatenated
-    # [left | right] patch rows (1568 B) once beats two 784 B gathers of
-    # the same bytes (round-5 trace: temporal top-level gathers ~125 ms).
+    # ONE wide row gather for both sides: at these row widths gather
+    # cost has a per-row part, so the concatenated [left | right] patch
+    # rows (1568 B) are fetched once instead of in two 784 B gathers of
+    # the same bytes.
     # Two layouts (cfg.temporal_gate_layout):
     #   "dense": full (M, Cq) computation (every slot, masked later);
     #   "flat":  compact active (row, slot) pairs to a flat list first -
@@ -292,10 +292,10 @@ def match_temporal(kf: StereoMates, cf: StereoMates,
     D2 = cf.left_desc.shape[-1]
 
     # patch payload ships as bf16 PAIRS bitcast into f32 carrier rows in
-    # BOTH layouts: half the gather bytes of the dominant fetch (~120 ms
-    # of temporal top-level gathers in the round-5 trace) at full f32
-    # row-gather efficiency (direct sub-32-bit gathers measured SLOWER
-    # in round 4). Patch values are bilinear samples of 0..255 images;
+    # BOTH layouts: half the gather bytes of the dominant temporal fetch
+    # at 32-bit row-gather granularity (direct sub-32-bit gathers were
+    # slower where this was tuned; not measured on a GPU yet). Patch
+    # values are bilinear samples of 0..255 images;
     # bf16 rounds them at ~0.2 gray, moving NCC scores by ~1e-4 against
     # gates at 0.8 (quality-gated by the bench workload record).
     n_cf = cf_pat_lr.shape[0]
@@ -389,7 +389,7 @@ def match_temporal(kf: StereoMates, cf: StereoMates,
         _flatten_active, _scatter_back)
     rows, slots, fmask = _flatten_active(q.cmask, cfg.max_refine_pairs)
     # packed flat-list fetches: one row gather per side instead of six
-    # narrow 131072-element gathers (round-5 trace: ~10-20 ms each)
+    # narrow 131072-element gathers
     kf_pack = jnp.stack([kf.left_x, kf.left_y, kf.left_theta,
                          kf.right_x, kf.right_y, kf.right_theta],
                         -1)[rows]                        # (B, 6)

@@ -60,9 +60,9 @@ class StereoMates(NamedTuple):
     right_x: jnp.ndarray
     right_y: jnp.ndarray
     right_theta: jnp.ndarray
-    # flat [plus | minus] patch layout: (M, 2, P*P) would pad its (2, P*P)
-    # minor dims to (8, 128) TPU tiles (10.4x), inflating every temporal
-    # per-candidate patch gather; flat pads 2*P*P=98 -> 128 only (1.3x)
+    # flat [plus | minus] patch layout: one contiguous 2*P*P row per mate,
+    # so each temporal per-candidate patch gather moves one row, and no
+    # tiled layout pads a size-2 minor dimension
     left_patches: jnp.ndarray   # (M, 2*P*P)  [plus | minus]
     right_patches: jnp.ndarray  # (M, 2*P*P)
     left_patch_ok: jnp.ndarray  # (M, 2) bool

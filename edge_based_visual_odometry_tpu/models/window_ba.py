@@ -10,8 +10,8 @@ models/ba.py.
 
 Host-side bookkeeping is fully VECTORIZED numpy over the fixed mate-slot
 axis: at production density a keyframe carries ~24k mates per frame under
-the `every_frame` policy, so per-slot Python loops (the round-4
-implementation) cost more than the device solve. Track propagation is a
+the `every_frame` policy, so per-slot Python loops would cost more than
+the device solve. Track propagation is a
 scatter, track counting is np.unique, and window assembly is one
 flattened (keyframe, slot) pass.
 """
@@ -34,10 +34,10 @@ from edge_based_visual_odometry_tpu.models import ba as BA
 class WindowBAConfig:
     window: int = 5            # keyframes in the optimization window
     min_track_len: int = 2
-    # Capacities sized for HONEST production density (round-4 verdict
-    # item: the old 4096/16384 sat far below the measured ~24k mates per
-    # keyframe and truncated every frame): with window=5 and ~24k mates,
-    # qualifying tracks reach ~max_mates and observations ~window * mates.
+    # Capacities sized for HONEST production density (4096/16384 would
+    # sit far below the ~24k mates per keyframe and truncate every
+    # frame): with window=5 and ~24k mates, qualifying tracks reach
+    # ~max_mates and observations ~window * mates.
     max_landmarks: int = 32768
     max_obs: int = 131072
     n_iters: int = 8
@@ -59,8 +59,8 @@ class WindowBA:
 
     `mesh`: optional jax.sharding.Mesh. When set, the solve shards the
     landmark and observation axes over the mesh's first axis (poses and
-    intrinsics replicated); XLA inserts the Schur-complement AllReduces
-    over ICI. max_landmarks / max_obs are static, so the sharded program
+    intrinsics replicated); XLA inserts the Schur-complement
+    AllReduces. max_landmarks / max_obs are static, so the sharded program
     caches across frames exactly like the single-device one.
     """
 

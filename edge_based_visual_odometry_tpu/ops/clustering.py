@@ -1,6 +1,6 @@
 """Vectorized agglomerative edge clustering.
 
-TPU-native replacement for the reference's EdgeClusterer
+A fixed-shape replacement for the reference's EdgeClusterer
 (src/EdgeClusterer.cpp:119-302): the reference runs a greedy
 repeat-until-fixed-point nearest-neighbor merge under
 (dist < CLUSTER_DIST_THRESH [, orient diff < CLUSTER_ORIENT_THRESH])
@@ -81,9 +81,8 @@ def cluster_edges(x, y, theta, mask,
         # the reach (min within 2d: lab[j] is a node within distance d
         # whose own label is its min within distance d). Labels only
         # decrease toward the component min, so this is exact CC.
-        # The jump is a one-hot einsum, not take_along_axis: the per-row
-        # gathers cost ~4 ms/round inside the composed program (round-5
-        # trace) while the (.., C, C) contraction is MXU noise. Exact:
+        # The jump is a one-hot einsum, not take_along_axis: a tiny
+        # (.., C, C) contraction instead of per-row gathers. Exact:
         # labels stay < C (= 32) inside the loop - integers this small
         # are exactly representable in bf16, and each output row of the
         # one-hot product has exactly one nonzero term.
@@ -97,7 +96,7 @@ def cluster_edges(x, y, theta, mask,
 
     # reach after k rounds: d_{k+1} = 2(d_k + 1), so ceil(log2 C) + 2
     # rounds cover any diameter <= C (a C-step plain propagation spent
-    # C full (.., C, C) passes; the round-4 trace showed that traffic)
+    # C full (.., C, C) passes)
     n_rounds = max(1, int(np.ceil(np.log2(max(C, 2)))) + 2)
     labels = jax.lax.fori_loop(0, n_rounds, body, labels)
     labels = jnp.where(mask, labels, C)
@@ -117,8 +116,8 @@ def cluster_edges(x, y, theta, mask,
         # rank[r, j] = #{k in component r : (dc[r,k], k) < (dc[r,j], j)}.
         # The (r, k, j) comparison cube looks expensive but XLA tiles the
         # k-reduction without materializing it; a double-argsort
-        # reformulation (2 sorts of the last axis) measured 5% SLOWER
-        # end-to-end on v5e - TPU sorts lose to fused compare-reduce.
+        # reformulation (2 sorts of the last axis) is the alternative,
+        # not measured on a GPU yet.
         slot_j = jax.lax.broadcasted_iota(jnp.int32, (C, C), 1)
         A = dc[..., :, :, None]                          # (..., r, k, 1)
         B = dc[..., :, None, :]                          # (..., r, 1, j)

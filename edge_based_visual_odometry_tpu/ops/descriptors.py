@@ -3,7 +3,8 @@
 DELIBERATE DEVIATION from the reference: the reference calls OpenCV
 cv::SIFT::compute on two orthogonally-shifted keypoints per edge
 (src/Stereo_Matches.cpp:655-689, 691-787) - a host-side, dynamically-shaped
-library call that cannot run on TPU. We fill the same "appearance gate"
+library call that cannot run inside a jitted device program. We fill the
+same "appearance gate"
 role with a batched 128-D gradient-orientation-histogram descriptor (the
 same family of feature as SIFT):
 
@@ -16,7 +17,7 @@ same family of feature as SIFT):
     meaningful; they stay runtime-configurable in VOConfig).
 
 Descriptors are computed for ALL edges of an image in one shot as gathers
-over precomputed Sobel gradient maps - ideal VPU work. The keypoints are
+over precomputed Sobel gradient maps - elementwise work. The keypoints are
 the two orthogonally shifted points at +-8 px, matching
 augment_Edge_Data (Stereo_Matches.cpp:669).
 """
@@ -118,16 +119,15 @@ def edge_descriptors_tiled(gx_img, gy_img, x, y, theta, shift_mag: float = 8.0,
                            tile: int = 40, stride: int = 8,
                            chunk: int = 8192, active=None):
     """Batched descriptor computation via tile-resident sampling and a
-    factorized histogram einsum (no per-sample scatter-adds - those are as
-    pathological on TPU as element gathers). Numerically identical binning
+    factorized histogram einsum (no per-sample scatter-adds, which
+    serialize on colliding bins). Numerically identical binning
     to `edge_descriptors`: separable hat weights over spatial cells
     reproduce the bilinear corner assignment (incl. boundary clamping),
     and a circular hat reproduces the two-bin orientation interpolation.
 
-    x, y, theta: (N,). Returns FLAT (N, 2*D) bf16, [plus | minus]: a
-    (N, 2, D) stack pads its (2, D) minor dims to (16, 128) bf16 TPU
-    tiles (8x), inflating every downstream per-candidate gather; flat
-    (N, 2*D) is tile-exact.
+    x, y, theta: (N,). Returns FLAT (N, 2*D) bf16, [plus | minus]: one
+    contiguous row per edge, so each downstream per-candidate gather
+    moves one row and no tiled layout pads a size-2 minor dimension.
     """
     from edge_based_visual_odometry_tpu.ops import tiled_sampling as TS
 
@@ -204,10 +204,9 @@ def min_cross_distance(desc_a, desc_b):
 
 def min_cross_distance_dot(desc_a, desc_b):
     """Same result as min_cross_distance via |a|^2 + |b|^2 - 2 a.b - the
-    dot runs on the MXU and no (.., 2, 2, D) difference tensor is
+    dot is a matmul and no (.., 2, 2, D) difference tensor is
     materialized. FLAT layout: desc_a (B, 2*D); desc_b (B, C, 2*D),
-    [plus | minus] halves (edge_descriptors_tiled). Halves are sliced at
-    the lane-aligned D boundary, so the gathered buffers stay tile-exact.
+    [plus | minus] halves (edge_descriptors_tiled), sliced at D.
     """
     a = desc_a.astype(jnp.float32)
     b = desc_b.astype(jnp.float32)

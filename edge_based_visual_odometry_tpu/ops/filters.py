@@ -13,7 +13,7 @@ support p in [-9, 9], optional half-pixel phase shift dy = 0.5):
 and assemble the 36 2D convolution kernels (9 derivative products x 4
 half-pixel phases) in XLA-correlation layout, so one `lax.conv` call
 reproduces the reference's quadruple-nested scalar loop
-(cpu_toed.cpp:180-364) as a single MXU-friendly convolution.
+(cpu_toed.cpp:180-364) as a single convolution.
 """
 
 from __future__ import annotations

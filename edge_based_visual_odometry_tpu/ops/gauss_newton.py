@@ -203,13 +203,14 @@ def refine_2dof(kf_img, cf_img, cf_gx, cf_gy,
 
 
 # ---------------------------------------------------------------------------
-# Batched tile-resident refiners (the TPU production path).
+# Batched tile-resident refiners (the production path).
 #
 # The scalar+vmap versions above lower every bilinear sample to an element
-# gather - O(10^8) random accesses per frame, catastrophic on TPU. These
-# variants fetch one tile per candidate up front (slice-gather) and turn
-# all in-tile sampling into batched einsums (ops/tiled_sampling.py),
-# processing candidates in sequential chunks to bound HBM.
+# gather - O(10^8) random accesses per frame. These variants fetch one
+# tile per candidate up front (slice-gather) and turn all in-tile sampling
+# into batched einsums (ops/tiled_sampling.py), processing candidates in
+# sequential chunks to bound device memory. Whether a GPU prefers direct
+# bilinear gathers is not measured yet.
 # ---------------------------------------------------------------------------
 
 from edge_based_visual_odometry_tpu.ops import tiled_sampling as TS  # noqa: E402

@@ -1,6 +1,6 @@
 """Scatter-free spatial indexing: sort-by-band + searchsorted range queries.
 
-TPU-native replacement for the reference's SpatialGrid
+A fixed-shape replacement for the reference's SpatialGrid
 (include/Dataset.h:22-114), whose build is a two-phase parallel-classify /
 serial-insert into std::vector cells and whose query concatenates
 variable-length cell lists. Here:
@@ -34,17 +34,15 @@ class SortedGrid(NamedTuple):
     sorted_attrs: jnp.ndarray  # (A, N) edge attributes in sorted order,
                                # ATTRIBUTE-MAJOR: a query's attr fetch is
                                # one gather per attribute with the (large)
-                               # slot axis minor. The previous (N, A)
-                               # row-gather produced (Q, S, A) outputs
-                               # whose A=6 lane axis padded to 128 on TPU
-                               # (21x HBM inflation - the round-3
-                               # max_mates=32768 OOM, capacity_sweep.py)
+                               # slot axis minor. An (N, A) row-gather
+                               # would produce (Q, S, A) outputs with a
+                               # tiny minor axis, which tiled layouts pad
+                               # many times over
     start: jnp.ndarray         # (n_bands * W * 16 + 1,) int32 bucket
                                # start table: start[k] = #sorted keys < k.
                                # Replaces searchsorted range location with
-                               # an O(1) lookup (the binary search's
-                               # log(N) serial gathers cost ~50 ms/frame
-                               # in the round-5 trace)
+                               # an O(1) lookup (no log(N) rounds of
+                               # serial gathers)
     band_h: float
     n_bands: int
     width: int
@@ -59,7 +57,7 @@ def build_sorted_grid(x, y, valid, width: int, height: int,
     realistic image size.
 
     attrs: optional (N, A) per-edge payload; stored attribute-major in
-    sorted order so a query's attribute fetch is one lane-efficient
+    sorted order so a query's attribute fetch is one contiguous
     gather per attribute (see SortedGrid.sorted_attrs).
     """
     n_bands = -(-height // band_h)
@@ -68,15 +66,13 @@ def build_sorted_grid(x, y, valid, width: int, height: int,
     xq = jnp.clip(jnp.round(x * 16.0), 0, width * 16 - 1).astype(jnp.int32)
     key = band * W16 + xq
     key = jnp.where(valid, key, jnp.int32((n_bands + 1) * width * 16))
-    # comparison-count rank instead of XLA's bitonic argsort (~20 ms per
-    # 32k-key sort in the round-5 trace; ops/sortfree.py)
+    # comparison-count rank instead of XLA's argsort (ops/sortfree.py)
     order = SF.argsort_flat_stable(key)
     if attrs is None:
         attrs = jnp.stack([x, y], -1)
     # the original-index plane rides WITH the attributes (f32 is exact
-    # for indices < 2^24): a separate sorted_idx[pos] gather cost ~35 ms
-    # in-context (round-5 trace) while adding one plane to the fused
-    # attr gather costs ~1 ms
+    # for indices < 2^24): one more plane in the fused attr gather
+    # instead of a separate sorted_idx[pos] gather
     attrs = jnp.concatenate(
         [jnp.arange(x.shape[0], dtype=jnp.float32)[:, None], attrs], -1)
     # bucket start table: histogram over the key domain + prefix sum.
@@ -97,8 +93,7 @@ def _band_window_positions(grid: SortedGrid, qx, qy, rx: float, ry: float,
     sorted arrays.
 
     Spans are located with the precomputed bucket start table (O(1) per
-    query) rather than searchsorted - the binary search's log(N) serial
-    gather rounds cost ~50 ms/frame in the round-5 device trace."""
+    query) rather than searchsorted's log(N) serial gather rounds."""
     W16 = jnp.int32(grid.width * 16)
     nb = jnp.int32(grid.n_bands) * W16
     b0 = jnp.floor((qy - ry) / grid.band_h).astype(jnp.int32)
@@ -139,15 +134,14 @@ def query_sorted_grid_attrs(grid: SortedGrid, qx, qy, rx: float, ry: float,
                             slots_per_band: int, n_band_window: int):
     """Box query returning (idx, attrs, mask): attrs is ATTRIBUTE-MAJOR
     (A, Q, S) - index attrs[k] for the k-th attribute's (Q, S) plane.
-    The slot axis stays minor so TPU lane padding applies to S (large),
-    not A (tiny). idx comes out of the same fused gather (plane 0 of the
+    The slot axis stays minor so any layout padding applies to S
+    (large), not A (tiny). idx comes out of the same fused gather (plane 0 of the
     stored payload; see build_sorted_grid).
 
     GUARANTEE: every masked-True slot refers to a VALID source entry -
     invalid entries carry the sentinel key, sort past every in-range
     band span, and pos < hi excludes them. Callers must NOT re-gather a
-    validity flag (a pred gather over the window cost ~39 ms in the
-    round-5 trace)."""
+    validity flag (a redundant pred gather over the whole window)."""
     pos, mask = _band_window_positions(grid, qx, qy, rx, ry,
                                        slots_per_band, n_band_window)
     g = grid.sorted_attrs[:, pos]
@@ -176,10 +170,9 @@ def _compact_planes(mask, capacity, priority, planes):
     first (by `priority` when given). Two regimes:
 
       S <= _MAX_RANK_WIDTH: comparison-count rank + ONE one-hot
-        dot_general (sortfree.compact_by_rank) - no gathers at all
-        (per-row take_along gathers measured ~4 ms/plane at production
-        shapes, round-5 trace). Dead output slots are 0.0.
-      wider: XLA top_k + take_along_axis (the pre-round-5 formulation).
+        dot_general (sortfree.compact_by_rank) - no per-row
+        take_along gathers at all. Dead output slots are 0.0.
+      wider: XLA top_k + take_along_axis.
 
     Returns (A, Q, capacity) f32; callers re-cast idx/mask planes.
     """

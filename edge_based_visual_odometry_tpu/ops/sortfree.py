@@ -1,15 +1,14 @@
 """Sort-free exact replacements for XLA sort / top_k / cumsum hot spots.
 
-The round-5 device trace (benchmarks/NOTES.md) attributed ~550 ms of the
-~1200 ms production frame to XLA sorts and flat-array scans: the grid
+On the accelerator this code was first tuned for, XLA sorts and
+flat-array scans were about half of the production frame: the grid
 builds' argsort, the gather-window top_k compactions over (32768, 160) /
 (24576, 195) score tensors, the BNB double argsort, the PROSAC lift's
 top_k over 786k keys, and the cumsum+scatter compaction machinery. XLA
-lowers all of these to bitonic sort networks / sequential scans that run
-at a few elements per cycle on the TPU vector unit.
+lowered them to sort networks and sequential scans.
 
 Every routine here computes the IDENTICAL permutation/prefix-sum with
-MXU- and VPU-friendly primitives instead:
+matmul- and elementwise-friendly primitives instead:
 
   - `cumsum_i32`      - blocked triangular-matmul prefix sum (exact for
                         integer values < 2^24; matmul accumulates in f32).
@@ -28,8 +27,8 @@ MXU- and VPU-friendly primitives instead:
 Exactness contract: each function documents the jnp reference expression
 it must match bit-for-bit (tie handling included); tests/test_sortfree.py
 asserts equality on adversarial inputs. `ENABLED = False` reverts every
-caller to the original XLA-sort formulations - the one-flag bisect arm
-for the remote-compiler miscompile playbook (benchmarks/NOTES.md).
+caller to the original XLA-sort formulations; which side is faster on a
+GPU (where XLA sorts with its own GPU sort) is not measured yet.
 """
 
 from __future__ import annotations
@@ -77,7 +76,7 @@ def cumsum_i32(x: jnp.ndarray, block: int = 256) -> jnp.ndarray:
     jnp.cumsum(x.astype(int32)) for totals < 2^24.
 
     Blocked two-level structure: in-block prefix sums are one (R, block)
-    @ (block, block) triangular matmul on the MXU; block offsets recurse.
+    @ (block, block) triangular matmul; block offsets recurse.
     """
     n = x.shape[0]
     total_bound_ok = n < (1 << 24)
@@ -192,8 +191,7 @@ def compact_by_rank(rank: jnp.ndarray, capacity: int, planes: jnp.ndarray,
     planes: (A, N, S) float32 value planes sharing one rank permutation.
     Equivalent to stacking take_along_axis(plane, order) with
     order = order_from_rank(rank, capacity) - but as ONE one-hot
-    dot_general on the MXU instead of A per-row gathers (the round-5
-    trace measured those gathers at ~4 ms per plane at (32768, 160)).
+    dot_general instead of A per-row gathers at (32768, 160).
     Exact: the one-hot operand is 0/1 (exactly representable at any
     precision) and each output is a sum with exactly one nonzero term;
     HIGHEST precision keeps the f32 value operand exact.
@@ -243,8 +241,7 @@ def argsort_flat_stable(keys: jnp.ndarray, chunk: int = 8192) -> jnp.ndarray:
     comparison counting: exact match for jnp.argsort(keys, stable=True).
 
     O(n^2) comparisons evaluated as (n, chunk) blocks - for the grid
-    builds' n ~ 32k this is ~1G VPU compare+adds, far below the measured
-    ~20 ms XLA sort cost at that size.
+    builds' n ~ 32k this is ~1G elementwise compare+adds.
     """
     if not ENABLED:
         return jnp.argsort(keys, stable=True).astype(jnp.int32)
@@ -338,8 +335,8 @@ def counting_sort_order(class_idx: jnp.ndarray, mask: jnp.ndarray,
     hist = tot.sum(0)                                # (C,) class totals
     class_off = jnp.cumsum(hist) - hist              # exclusive class base
     # each element's own class rank: reuse the one-hot instead of a
-    # take_along gather (786k single-element row gathers cost ~11 ms
-    # in-context, round-5 trace); exactly one nonzero term per row
+    # take_along gather of 786k single elements; exactly one nonzero
+    # term per row
     cls_i = jnp.minimum(cls, n_classes - 1).astype(jnp.int32)
     wr = jnp.sum(within.reshape(R * block, n_classes)
                  * oh.astype(jnp.float32), axis=1) - 1.0

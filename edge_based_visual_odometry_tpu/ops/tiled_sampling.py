@@ -1,16 +1,14 @@
-"""Tile-resident bilinear sampling: the TPU answer to random image gathers.
+"""Tile-resident bilinear sampling in place of random image gathers.
 
-Per-element gathers (what naive `img[y, x]` lowers to) run at a few
-elements per cycle on TPU - the photometric stages need O(10^8) bilinear
-samples per frame, which made the XLA gather formulation ~50 s/frame.
-This module restructures image sampling in two steps:
+The photometric stages need O(10^8) bilinear samples per frame. Naive
+`img[y, x]` lowers each to element gathers; this module restructures
+image sampling in two steps instead:
 
   1. `gather_tiles`: one vmapped dynamic_slice per candidate fetches a
-     TxT tile around its anchor - a slice-gather (contiguous rows), which
-     the TPU memory system handles well.
+     TxT tile around its anchor - a slice-gather of contiguous rows.
   2. `bilinear_sample_tiles`: arbitrary subpixel samples WITHIN the tile
      are evaluated with separable hat-function weight matrices and two
-     batched einsums - MXU matmuls instead of random access:
+     batched einsums - matmuls instead of random access:
        value[b, s] = sum_{r, c} hat(ry[b,s]-r) * tile[b,r,c] * hat(rx[b,s]-c)
 
 The hat-function product is exactly bilinear interpolation for in-tile
@@ -55,22 +53,24 @@ def bilinear_sample_tiles(tiles: jnp.ndarray, ox, oy, xs, ys,
 
     Returns (B, C, S). Coordinates are clamped to the tile interior.
 
-    Precision policy (measured on TPU v5e, KITTI-res workload): HIGH
-    (3-pass bf16) matches full-f32 pose quality at ~2x the einsum
-    throughput of HIGHEST; single-pass bf16 for VALUE channels costs 8%
-    inliers and is rejected. `grad_precision`, when set, applies to
-    channels 1..C-1 (the gradient maps in the GN layout [img, gx, gy]):
-    gradients only scale the Gauss-Newton step - they cancel out of the
-    converged fixed point - so they tolerate single-pass bf16.
+    Precision policy. On an NVIDIA H100 an f32 einsum at HIGH or DEFAULT
+    runs on the tensor cores in TF32 (~1.4e-4 relative error on these
+    contractions, against ~3e-7 at HIGHEST). Value channels run at
+    `precision` (HIGH). `grad_precision`, when set, applies to channels
+    1..C-1 (the gradient maps in the GN layout [img, gx, gy]): gradients
+    only scale the Gauss-Newton step - they cancel out of the converged
+    fixed point - so they tolerate the least precise mode. Both choices
+    were made for a device without TF32 and are kept until the GPU
+    speed/pose-error A/B.
 
-    `weight_split`: value-channel fast path for INTEGER-VALUED images
-    (the production path: PNG/uint8 sources; 0..255 is exact in bf16).
-    The big column contraction runs as TWO single-pass bf16 einsums with
-    the hat weights split hi/lo (w = bf16(w) + bf16(w - bf16(w)), exact
-    to ~2^-16) instead of one 3-pass HIGH einsum - same result to
-    ~0.003 gray for integer tiles, ~33% less MXU work on the dominant
-    einsum. Non-integer sources (e.g. EuRoC's host-undistorted frames)
-    should keep it off: tile rounding would add ~0.2 gray of noise.
+    `weight_split`: value-channel path for INTEGER-VALUED images (the
+    production path: PNG/uint8 sources; 0..255 is exact in bf16). The big
+    column contraction runs as TWO bf16 einsums with the hat weights
+    split hi/lo (w = bf16(w) + bf16(w - bf16(w))), meant to be exact to
+    ~2^-16. XLA's CPU backend keeps it so (~1.5e-6 relative); on the H100
+    the pair measured ~1.0e-3 relative, i.e. bf16-level, about 0.25 gray
+    at full scale. Non-integer sources (e.g. EuRoC's host-undistorted
+    frames) should keep it off: tile rounding adds ~0.2 gray of noise.
     """
     B, C, T, _ = tiles.shape
     rx = jnp.clip(xs - ox[:, None].astype(xs.dtype), 0.0, T - 1.0)
@@ -82,9 +82,8 @@ def bilinear_sample_tiles(tiles: jnp.ndarray, ox, oy, xs, ys,
 
     def contract(tl, prec):
         # contract the column axis first: (B,S,U)x(B,c,T,U) -> (B,c,T,S)
-        # keeps the LARGER sample axis minor (S=98 pads to 128 lanes vs
-        # the tile axis 48 -> 128, i.e. 23% vs 62% lane waste in the MXU
-        # output), then the row weights reduce over T
+        # keeps the LARGER sample axis minor in the output, then the row
+        # weights reduce over T
         p = jnp.einsum("bsu,bctu->bcts", w_col, tl, precision=prec)
         return jnp.einsum("bst,bcts->bcs", w_row, p, precision=prec)
 
@@ -135,9 +134,8 @@ class TileAtlas:
 def build_atlas(maps: jnp.ndarray, tile: int, stride: int) -> TileAtlas:
     """Precompute overlapping TxT tiles at a fixed stride grid.
 
-    Per-candidate vmapped dynamic_slice costs ~2 us of DMA latency per
-    slice (~4.6 ms per 2048 tiles, measured); fetching from a precomputed
-    atlas is a contiguous row gather (~1.3 ms per 2048 tiles). The atlas
+    Fetching from a precomputed atlas is one contiguous row gather per
+    candidate instead of a per-candidate dynamic_slice. The atlas
     guarantees every window of half-width w <= tile/2 - stride/2 - 1
     around any point is covered by its nearest tile.
 
@@ -188,7 +186,8 @@ def sample_atlas(atlas: TileAtlas, cx, cy, xs, ys):
 def map_chunked(fn, args, batch: int, chunk: int, active=None):
     """Apply `fn` (pytree of (chunk, ...) arrays -> pytree of (chunk, ...)
     arrays) over a (batch, ...) pytree in sequential chunks via lax.map -
-    bounds the HBM working set of tile buffers and einsum temporaries.
+    bounds the device-memory working set of tile buffers and einsum
+    temporaries.
 
     `active`: optional (batch,) bool mask. Chunks whose mask is all-False
     are skipped with a lax.cond (their outputs are zeros) - with actives

@@ -1,6 +1,6 @@
 """Third-order edge detection (TOED) as fused XLA ops.
 
-TPU-native re-design of the reference detector
+A fixed-shape re-design of the reference detector
 (src/toed/cpu_toed.cpp:66-582):
 
   1. `toed_gradient_field`  - the 9 Gaussian-derivative convolutions at 4
@@ -11,7 +11,7 @@ TPU-native re-design of the reference detector
   2. `toed_nms_subpixel`    - directional non-maximum suppression over 8
      gradient quadrants with linear neighbor interpolation + Fisher-Naidu
      parabola subpixel fit (reference non_maximum_suppresion,
-     cpu_toed.cpp:386-513), fully vectorized on the VPU.
+     cpu_toed.cpp:386-513), fully vectorized elementwise work.
   3. `extract_edges`        - masked raster-order compaction of surviving
      subpixel edges into a fixed-capacity EdgeList (reference's serial
      output pass, cpu_toed.cpp:525-575), including the (p - 1) / 2
@@ -50,8 +50,8 @@ class EdgeList(NamedTuple):
 def _shift_add_conv_1d(x: jnp.ndarray, taps, axis: int) -> jnp.ndarray:
     """Correlation out[i] = sum_a taps[a] * x[i + a - C] with zero padding,
     as an unrolled shift-and-add - pure elementwise FMA work that XLA fuses
-    into a handful of passes on both VPU and CPU (a 1-input-channel 2D conv
-    is degenerate for conv libraries/MXU: K=1 contraction)."""
+    into a handful of passes (a 1-input-channel 2D conv is degenerate for
+    conv libraries and matrix units: K=1 contraction)."""
     K = len(taps)
     C = (K - 1) // 2
     pad_widths = [(0, 0), (0, 0)]
@@ -73,12 +73,11 @@ def _windowed_conv_1d_multi(x: jnp.ndarray, taps_matrix: np.ndarray,
     """All O correlations out[o, i] = sum_a taps[o, a] * x[.., i + a - C, ..]
     in ONE einsum over a stacked shift window.
 
-    The per-tap shift-and-add (above) emitted ~900 small slice+FMA ops per
-    image whose per-op overhead dominated the TOED stage on TPU (~29 us/op
-    in the round-4 device trace); stacking the K shifted views once and
-    contracting on the MXU collapses that to one materialized (K, ...)
-    window + one matmul per pass. HIGHEST precision keeps f32 accuracy
-    (the TOED parity tests gate this).
+    The per-tap shift-and-add (above) emits ~900 small slice+FMA ops per
+    image, each with its own launch overhead; stacking the K shifted views
+    once and contracting in a matmul collapses that to one materialized
+    (K, ...) window + one matmul per pass. HIGHEST precision keeps f32
+    accuracy (the TOED parity tests gate this; TF32 would not pass).
 
     x: (...); taps_matrix: (O, K) numpy. Returns (O, *x.shape).
     """
@@ -252,8 +251,7 @@ def extract_edges(subpix_x, subpix_y, subpix_mag, orient, valid,
     # raster rank k sits at the first flat index where the inclusive keep
     # count reaches k+1, i.e. searchsorted(csum, k+1, 'left'). csum is
     # monotone, so this is ~log2(2H*2W) rounds of (max_edges,)-sized
-    # gathers instead of a full (2H*2W)-update scatter stream (the single
-    # largest device op, ~22 ms/image, in the round-5 final trace). Exact:
+    # gathers instead of a full (2H*2W)-update scatter stream. Exact:
     # identical kept entries and ordering; ranks >= count resolve past the
     # array end and are masked by slot_ok below.
     ranks = jnp.arange(1, max_edges + 1, dtype=jnp.int32)
@@ -281,10 +279,8 @@ def detect_edges(img: jnp.ndarray, kernel_size: int = 17, sigma: float = 2.0,
     Ix, Iy, mag, orient = toed_gradient_field(img, kernel_size, sigma)
     sx, sy, smag, valid = toed_nms_subpixel(
         Ix, Iy, mag, orient, border=border, grad_mag_min=grad_mag_min)
-    # NOTE: do NOT optimization_barrier the NMS maps before the scatters.
-    # An isolated detect_edges microbenchmark suggests the scatters recompute
-    # the NMS chain (47 ms standalone extract), but A/B on the full pipeline
-    # measured the barrier at 1.7x SLOWER end-to-end (1.603 -> 0.927
-    # frames/s): inside the composed per-frame program XLA's fusion choices
-    # are already right, and forcing 5 (2H, 2W) materializations breaks them.
+    # No optimization_barrier on the NMS maps: an isolated detect_edges
+    # suggests the extraction recomputes the NMS chain, but inside the
+    # composed per-frame program XLA's fusion choices hold, and forcing 5
+    # (2H, 2W) materializations made the whole pipeline slower.
     return extract_edges(sx, sy, smag, orient, valid, H, W, max_edges, border)

@@ -1,14 +1,13 @@
 """Device-mesh scaling of the VO pipeline.
 
 The reference's only parallelism is intra-host OpenMP (SURVEY.md §2.2).
-The TPU-native scaling story replaces it with SPMD over a
-jax.sharding.Mesh:
+Here it is replaced by SPMD over a flat jax.sharding.Mesh:
 
   - axis "frame": data parallelism over stereo frame pairs - the natural
-    production deployment (shard a KITTI sweep across chips). Detection,
+    production deployment (shard a KITTI sweep across devices). Detection,
     matching, temporal association and pose solve all run per-pair with no
-    cross-pair dependencies; aggregate statistics are psum-reduced over
-    ICI (the all-reduce XLA inserts for the mean over the sharded axis).
+    cross-pair dependencies; aggregate statistics are reduced by the
+    all-reduce XLA inserts for the mean over the sharded axis.
   - windowed BA (models/ba.py) shards keyframe blocks over the same mesh
     and psum-reduces Schur complements.
 
@@ -53,17 +52,17 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "frame") -> Mesh:
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> Mesh:
-    """Multi-host entry point: initialize jax.distributed (auto-detected on
-    Cloud TPU pods when all args are None) and return the global frame mesh
-    over every chip in the slice.
+    """Multi-host entry point: initialize jax.distributed and return the
+    global frame mesh over every device of every process. Without a
+    cluster environment JAX can detect, pass all three arguments
+    (coordinator_address="localhost:<port>" for processes on one host).
 
     The per-pair pipeline has no cross-pair dependencies, so the same
     `build_sharded_pair_step` works unchanged: frame-pair batches shard over
-    all hosts' chips, and the only cross-host traffic is the final scalar
-    AllReduce (which XLA routes over ICI within a slice). Launch the same
-    script per host with host-local input shards (jax.make_array_from
-    _process_local_data) - see tests/test_parallel.py for the single-host
-    virtual-mesh equivalent.
+    all processes' devices, and the only cross-device traffic is the final
+    scalar AllReduce. Launch the same script per process with local input
+    shards (jax.make_array_from_process_local_data) - see
+    tests/test_parallel.py for the single-host virtual-mesh equivalent.
     """
     kwargs = {}
     if coordinator_address is not None:
@@ -131,7 +130,7 @@ def build_pair_step(rig: StereoRig, cfg: VOConfig):
 
 def build_sharded_pair_step(rig: StereoRig, cfg: VOConfig, mesh: Mesh):
     """jit the batched pair step with the batch sharded over mesh axis
-    'frame'. The final global mean is an all-reduce over ICI."""
+    'frame'. The final global mean is an all-reduce over the mesh."""
     one_pair = build_pair_step(rig, cfg)
     batched = jax.vmap(one_pair)
 
@@ -150,25 +149,44 @@ def build_sharded_pair_step(rig: StereoRig, cfg: VOConfig, mesh: Mesh):
                    out_shardings=out_shardings)
 
 
+def device_memory_budget(device=None,
+                         budget_bytes: Optional[int] = None) -> int:
+    """Bytes a program may hold on `device` (default: the first device):
+    `budget_bytes` when the caller gives one, else the allocator's limit
+    from device.memory_stats()["bytes_limit"]. A device that reports no
+    memory statistics (the CPU) has no such limit, so without a budget
+    this raises rather than guess one."""
+    if budget_bytes is not None:
+        return int(budget_bytes)
+    device = device if device is not None else jax.devices()[0]
+    stats = device.memory_stats()
+    if not stats or "bytes_limit" not in stats:
+        raise ValueError(
+            f"{device.platform} device {device.id} reports no memory limit; "
+            "pass budget_bytes explicitly")
+    return int(stats["bytes_limit"])
+
+
 def analyze_production_memory(n_devices: int = 8, h: int = 376,
                               w: int = 1241,
                               cfg: Optional[VOConfig] = None,
-                              hbm_budget_gib: float = 16.0) -> dict:
+                              budget_bytes: Optional[int] = None) -> dict:
     """AOT-compile the sharded pair step at PRODUCTION shapes (default:
     KITTI 376x1241, production VOConfig budgets) on an n-device mesh and
     report XLA's per-device memory analysis - no execution, so it runs on
     the virtual CPU mesh. Answers the question dryrun_multichip's tiny
-    shapes cannot: does one frame-pair per device fit per-device HBM?
+    shapes cannot: does one frame-pair per device fit in device memory?
 
     Returns {'argument_mib', 'output_mib', 'temp_mib', 'total_mib',
-    'fits_hbm'} with sizes in MiB per device (hbm_budget_gib defaults to
-    a v5e chip's 16 GiB).
+    'budget_mib', 'fits_memory'} with sizes in MiB per device; the budget
+    comes from device_memory_budget (explicit on the CPU).
     """
     cfg = cfg or VOConfig()
     from edge_based_visual_odometry_tpu.io import synthetic as S
 
-    rig = S.default_rig(h, w)
     mesh = make_mesh(n_devices)
+    budget = device_memory_budget(mesh.devices.flat[0], budget_bytes)
+    rig = S.default_rig(h, w)
     step = build_sharded_pair_step(rig, cfg, mesh)
 
     B = n_devices
@@ -185,7 +203,8 @@ def analyze_production_memory(n_devices: int = 8, h: int = 376,
         "temp_mib": ma.temp_size_in_bytes / mib,
     }
     out["total_mib"] = sum(out.values())
-    out["fits_hbm"] = out["total_mib"] < hbm_budget_gib * 1024.0
+    out["budget_mib"] = budget / mib
+    out["fits_memory"] = out["total_mib"] < out["budget_mib"]
     return out
 
 
@@ -218,8 +237,8 @@ def dryrun_multichip(n_devices: int, h: int = 64, w: int = 96) -> None:
     assert np.isfinite(float(out.mean_inlier_ratio))
 
     # Also exercise the sharded windowed-BA path (landmark/observation
-    # axes sharded over the same mesh, Schur blocks psum-reduced over
-    # ICI): a 3-frame VO loop with ba_window=2 runs the full in-loop
+    # axes sharded over the same mesh, Schur blocks psum-reduced): a
+    # 3-frame VO loop with ba_window=2 runs the full in-loop
     # solve on the mesh, not just the pair step.
     from edge_based_visual_odometry_tpu.models.pipeline import VOPipeline
     pipe = VOPipeline(rig=rig, cfg=cfg, ba_window=2, ba_mesh=mesh)

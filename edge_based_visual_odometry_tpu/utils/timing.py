@@ -55,7 +55,7 @@ class StageTimer:
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """jax.profiler trace wrapper - open with TensorBoard or xprof
-    (the TPU-native replacement for the reference's omp_get_wtime spans,
+    (the replacement for the reference's omp_get_wtime spans,
     src/toed/cpu_toed.cpp:164-368)."""
     jax.profiler.start_trace(log_dir)
     try:

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Long-sequence production-resolution validation (round-2 verdict #7).
+"""Long-sequence production-resolution validation.
 
-The closest achievable stand-in for the blocked KITTI-00 ATE gate (no
-real dataset on this machine): a >=100-frame synthetic corridor at
+The closest achievable stand-in for a KITTI-00 ATE gate (no real dataset
+can be fetched): a >=100-frame synthetic corridor at
 376x1241 with realistic forward motion (make_corridor_sequence), driven
 through the PRODUCTION CLI path (adaptive keyframing + sliding-window
 BA, no GT supervision), then judged on:
@@ -14,7 +14,7 @@ BA, no GT supervision), then judged on:
 The reference caps its driver at 2 frames (cmd/main_VO.cpp:111-112);
 this exercises 50x that at full production resolution.
 
-Usage (TPU, ~2-4 min after compile; CPU with --backend cpu, ~1-2 h):
+Usage (on the GPU; on the CPU with --backend cpu, ~1-2 h):
     python scripts/long_seq_validation.py [--n_frames 100] [--out DIR]
 Writes <out>/metrics.json + longseq_result.json (the judged record).
 """
@@ -92,7 +92,8 @@ def main():
     ap.add_argument("--n_frames", type=int, default=100)
     ap.add_argument("--h", type=int, default=376)
     ap.add_argument("--w", type=int, default=1241)
-    ap.add_argument("--out", default="/tmp/longseq_376x1241")
+    ap.add_argument("--out", default=os.path.join(
+        REPO, "outputs", "longseq_376x1241"))
     ap.add_argument("--backend", default=None, choices=["cpu"])
     ap.add_argument("--ba_window", type=int, default=5)
     ap.add_argument("--drift_frac", type=float, default=0.05,
@@ -104,7 +105,6 @@ def main():
     cfg_path, path_len = build_tree(args.out, args.n_frames, args.h,
                                     args.w)
     env = dict(os.environ)
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
     if args.backend:
         env["JAX_PLATFORMS"] = args.backend
     out_dir = os.path.join(args.out, "out")
@@ -135,7 +135,7 @@ def main():
 
     # metrics.json may be absent (GT trajectory missing/length-mismatched,
     # e.g. a frame produced no pose): emit a judged pass:false record
-    # instead of an unhandled FileNotFoundError traceback (ADVICE r3)
+    # instead of an unhandled FileNotFoundError traceback
     try:
         metrics = json.load(open(os.path.join(out_dir, "metrics.json")))
     except (FileNotFoundError, json.JSONDecodeError) as e:
@@ -147,12 +147,11 @@ def main():
     result = {
         "n_frames": args.n_frames,
         "resolution": [args.h, args.w],
-        "backend": args.backend or "tpu",
+        "backend": args.backend or "default",
         "ba_window": args.ba_window,
         "keyframe_policy": "adaptive",
         # record the judging criterion INSIDE the result so a loosened
         # bound is visible without recomputing ate_bound/gt_path_len
-        # (round-3 verdict weak #2)
         "drift_frac": args.drift_frac,
         "gt_path_len_m": round(path_len, 3),
         "ate_rmse_m": ate,

@@ -1,27 +1,29 @@
-"""Multi-host scaling harness for the sharded VO pair step.
+"""Multi-process scaling harness for the sharded VO pair step.
 
-The reference's only parallelism is intra-host OpenMP; the TPU-native
-scaling path is SPMD over a global jax.sharding.Mesh spanning every chip
-of every host (parallel/mesh.py). This script is the runnable protocol
+The reference's only parallelism is intra-host OpenMP; here the scaling
+path is SPMD over a global jax.sharding.Mesh spanning every device of
+every process (parallel/mesh.py). This script is the runnable protocol
 artifact for BASELINE.md's ">=70% scaling efficiency at 2 hosts" gate:
 
-  Single host (or rehearsal on the virtual CPU mesh):
+  One process driving every local GPU (or rehearsal on the virtual CPU
+  mesh):
     python scripts/run_multihost.py --batch_per_device 1 --steps 4
 
-  Multi-host (launch the SAME command on every host of the slice):
+  Several processes (launch the SAME command in every process; nothing
+  tells JAX of a cluster, so all three arguments are needed):
     python scripts/run_multihost.py \
-        --coordinator 10.0.0.1:8476 --num_processes 2 --process_id $RANK
+        --coordinator localhost:8476 --num_processes 2 --process_id $RANK
 
-  Virtual 8-device rehearsal (no TPU needed; exactly the code path the
+  Virtual 8-device rehearsal (no GPU needed; exactly the code path the
   tests exercise):
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python scripts/run_multihost.py --steps 2 --size small
 
 Protocol (documented in docs/SCALING.md): measure steady-state
-frames/s at batch_per_device=const for 1 chip, 1 host, 2 hosts; scaling
-efficiency = fps(N devices) / (N * fps(1 device)). Every host must see
+frames/s at batch_per_device=const for 1 device, 1 host, 2 hosts; scaling
+efficiency = fps(N devices) / (N * fps(1 device)). Every process must see
 only its own process-local shard - inputs are assembled with
-jax.make_array_from_process_local_data, so no host materializes the
+jax.make_array_from_process_local_data, so no process materializes the
 global batch.
 """
 
@@ -45,7 +47,7 @@ from edge_based_visual_odometry_tpu.io import synthetic as S  # noqa: E402
 from edge_based_visual_odometry_tpu.parallel import mesh as PM  # noqa: E402
 
 SIZES = {
-    # (h, w, cfg overrides) - 'small' for CPU rehearsal, 'kitti' for TPU
+    # (h, w, cfg overrides) - 'small' for CPU rehearsal, 'kitti' for GPUs
     "small": (64, 96, dict(max_edges=512, max_candidates=8, gather_slots=32,
                            max_mates=256, max_refine_pairs=512,
                            max_quad_candidates=8, quad_gather_slots=80,

@@ -1,14 +1,8 @@
-"""bench.py self-healing layout fallback.
+"""bench.py's reporting logic with the device work monkeypatched out.
 
-The driver runs bench.py unattended on real TPU at round end; when a
-gate layout hits the TPU silent-miscompile (workload guard trips), bench
-must fall back to the dense layout and still report an honest number
-instead of 0.0 (benchmarks/NOTES.md round-2 postmortem). As of round 3
-the DEFAULT layout is dense (the flat descriptor gate is mis-fused by
-the current TPU compiler at production shapes), so the default plan is
-single-entry; the fallback machinery stays for any future non-dense
-default. These tests exercise the decision logic with run_layout
-monkeypatched - no device compute.
+bench.py reports a frame rate only for a GPU run whose workload guard
+held: without a GPU it exits non-zero and prints no rate, and a collapsed
+workload reports an error with value 0.0. Every result names its device.
 """
 
 import importlib.util
@@ -19,6 +13,10 @@ import pytest
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 
+FAKE_GPU = {"platform": "gpu", "device_kind": "NVIDIA H100 80GB HBM3",
+            "count": 1, "gpu_name": "NVIDIA H100 80GB HBM3",
+            "power_limit": "700.00 W"}
+
 
 @pytest.fixture()
 def bench_mod(monkeypatch):
@@ -27,11 +25,13 @@ def bench_mod(monkeypatch):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     monkeypatch.setattr(mod, "whole_frame_baseline", lambda h, w: 209.4)
-    # stub the synthetic render out of the decision-logic tests
+    # stub the synthetic render and the device gate out of the
+    # decision-logic tests
     from edge_based_visual_odometry_tpu.io import synthetic as S
+    from edge_based_visual_odometry_tpu.utils import device as DEV
     monkeypatch.setattr(S, "make_sequence",
                         lambda n_frames, h, w: object())
-    monkeypatch.delenv("_VO_BENCH_LAYOUT", raising=False)
+    monkeypatch.setattr(DEV, "require_gpu", lambda min_count=1: FAKE_GPU)
     return mod
 
 
@@ -42,75 +42,52 @@ def _run_main(mod, capsys):
     return rc, payload
 
 
-def test_plan_layouts():
-    spec = importlib.util.spec_from_file_location(
-        "bench_plan", os.path.join(REPO, "bench.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    assert mod.plan_layouts(None, "dense") == ["dense"]
-    assert mod.plan_layouts(None, "flat") == ["flat", "dense"]
-    assert mod.plan_layouts(None, "flat5") == ["flat5", "dense"]
-    assert mod.plan_layouts("flat4", "dense") == ["flat4"]
-
-
 def test_default_dense_ok(bench_mod, monkeypatch, capsys):
     calls = []
 
-    def fake_run_layout(seq, layout, n):
-        calls.append(layout)
+    def fake_run_workload(seq, n):
+        calls.append(n)
         return 2.0, "mates=9999 quads=9999 inlier_ratio=0.9"
 
-    monkeypatch.setattr(bench_mod, "run_layout", fake_run_layout)
+    monkeypatch.setattr(bench_mod, "run_workload", fake_run_workload)
     rc, payload = _run_main(bench_mod, capsys)
     assert rc == 0
-    assert calls == ["dense"]
+    assert calls == [12]
     assert payload["value"] == 2.0
-    assert "note" not in payload
     assert payload["vs_baseline"] == pytest.approx(2.0 * 209.4, rel=0.01)
     assert "baseline_hw" in payload
-
-
-def test_nondense_default_falls_back_to_dense(bench_mod, monkeypatch,
-                                              capsys):
-    calls = []
-
-    def fake_run_layout(seq, layout, n):
-        calls.append(layout)
-        if layout != "dense":
-            return None, "workload collapsed: mates=0 quads=0"
-        return 1.5, "mates=9999 quads=9999 inlier_ratio=0.9"
-
-    monkeypatch.setattr(bench_mod, "plan_layouts",
-                        lambda pinned, default: ["flat", "dense"])
-    monkeypatch.setattr(bench_mod, "run_layout", fake_run_layout)
-    rc, payload = _run_main(bench_mod, capsys)
-    assert rc == 0
-    assert calls == ["flat", "dense"]
-    assert payload["value"] == 1.5
-    assert "dense" in payload["note"]
+    for key in ("platform", "device_kind", "gpu_name", "power_limit"):
+        assert payload[key] == FAKE_GPU[key]
 
 
 def test_all_collapse_reports_error(bench_mod, monkeypatch, capsys):
-    monkeypatch.setattr(bench_mod, "plan_layouts",
-                        lambda pinned, default: ["flat", "dense"])
-    monkeypatch.setattr(bench_mod, "run_layout",
-                        lambda seq, layout, n:
-                        (None, f"workload collapsed ({layout})"))
+    monkeypatch.setattr(bench_mod, "run_workload",
+                        lambda seq, n: (None, "workload collapsed: mates=0"))
     rc, payload = _run_main(bench_mod, capsys)
     assert rc == 1
     assert payload["value"] == 0.0
-    assert "flat" in payload["error"] and "dense" in payload["error"]
+    assert "collapsed" in payload["error"]
+    assert payload["platform"] == "gpu"
 
 
-def test_pinned_layout_skips_fallback(bench_mod, monkeypatch, capsys):
-    calls = []
+def test_no_gpu_exits_without_a_rate(bench_mod, monkeypatch, capsys):
+    from edge_based_visual_odometry_tpu.utils import device as DEV
 
-    def fake_run_layout(seq, layout, n):
-        calls.append(layout)
-        return None, "workload collapsed"
+    def no_gpu(min_count=1):
+        raise DEV.NoGPUError("JAX's first device is cpu")
 
-    monkeypatch.setenv("_VO_BENCH_LAYOUT", "flat4")
-    monkeypatch.setattr(bench_mod, "run_layout", fake_run_layout)
-    rc, payload = _run_main(bench_mod, capsys)
-    assert rc == 1
-    assert calls == ["flat4"]
+    monkeypatch.setattr(DEV, "require_gpu", no_gpu)
+    monkeypatch.setattr(bench_mod, "run_workload",
+                        lambda seq, n: pytest.fail("ran without a GPU"))
+    assert bench_mod.main() != 0
+    captured = capsys.readouterr()
+    assert captured.out.strip() == ""
+    assert "needs a GPU" in captured.err
+
+
+def test_require_gpu_refuses_the_cpu():
+    """The real gate, on the CPU backend the tests run on."""
+    from edge_based_visual_odometry_tpu.utils import device as DEV
+
+    with pytest.raises(DEV.NoGPUError, match="cpu"):
+        DEV.require_gpu()

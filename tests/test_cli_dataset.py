@@ -81,7 +81,6 @@ def test_main_vo_cli_end_to_end(kitti_dir):
     root, cfg_path, seq = kitti_dir
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
     out = subprocess.run(
         [sys.executable, os.path.join(os.path.dirname(__file__), "..",
                                       "main_vo.py"),
@@ -105,7 +104,6 @@ def test_main_vo_cli_dump_files(kitti_dir):
     out_dir = str(root / "out_dump")
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
     out = subprocess.run(
         [sys.executable, os.path.join(os.path.dirname(__file__), "..",
                                       "main_vo.py"),
@@ -153,7 +151,6 @@ def test_main_vo_cli_checkpoint_resume(kitti_dir):
     ck_dir = str(root / "ckpt")
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
     base = [sys.executable, os.path.join(os.path.dirname(__file__), "..",
                                          "main_vo.py"),
             "-c", str(cfg_path), "--max_edges", "1024",
@@ -200,7 +197,6 @@ def test_resume_with_decode_failure_no_desync(kitti_dir, tmp_path):
 
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
     # outside the copied tree: copytree may have brought along a ckpt/
     # and out/ left by earlier tests sharing the module fixture
     ckpt = str(tmp_path / "ckpt_fresh")
@@ -255,7 +251,6 @@ def test_resume_legacy_checkpoint_without_cli_state(kitti_dir, tmp_path):
 
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
     ckpt = str(tmp_path / "ckpt_legacy")
     main = os.path.join(os.path.dirname(__file__), "..", "main_vo.py")
 

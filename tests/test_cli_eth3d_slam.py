@@ -76,7 +76,6 @@ def test_main_vo_cli_eth3d_slam(eth3d_slam_cli_dir):
     root, cfg_path = eth3d_slam_cli_dir
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
     out = subprocess.run(
         [sys.executable, "main_vo.py", "-c", str(cfg_path),
          "--max_edges", "2048"],

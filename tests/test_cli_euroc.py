@@ -85,7 +85,6 @@ def test_main_vo_cli_euroc_end_to_end(euroc_tree):
     root, cfg_path = euroc_tree
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
     out = subprocess.run(
         [sys.executable, os.path.join(os.path.dirname(__file__), "..",
                                       "main_vo.py"),

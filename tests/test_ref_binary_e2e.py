@@ -210,7 +210,6 @@ def our_run(fixture_tree):
     root, cfg_path, R_rel = fixture_tree
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "main_vo.py"),
          "-c", str(cfg_path), "--max_edges", "2048", "--use_gt_pose",
@@ -232,13 +231,13 @@ def our_run_saturated(fixture_tree):
     """Our CLI on the SAME fixture with every flat capacity forced far
     below the live counts (round-2 verdict item 4: the e2e harness must
     bind the budgets - overflow/truncation semantics were only
-    unit-tested before, and this class produced both TPU incidents).
+    unit-tested before, and this class produced both miscompile
+    incidents).
     The reference is unbounded (Dataset.h:180-289), so comparing stage
     recall against the same ref_run proves saturation costs no recall."""
     root, cfg_path, R_rel = fixture_tree
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "main_vo.py"),
          "-c", str(cfg_path), "--max_edges", "2048", "--use_gt_pose",

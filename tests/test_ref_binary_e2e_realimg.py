@@ -112,7 +112,6 @@ def our_run(fixture_tree):
     root, cfg_path, _ = fixture_tree
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "main_vo.py"),
          # real-photo texture yields ~5.1k edges at 120x160 (0.27/px -

@@ -1,6 +1,6 @@
 """End-to-end stereo cascade on a synthetic scene with exact GT disparity.
 
-The TPU analog of the reference's in-pipeline GT-supervised evaluation on
+The automated analog of the reference's in-pipeline GT-supervised evaluation on
 ETH3D delivery_area (SURVEY.md §4.2): stage recall/precision become
 automated assertions.
 """
@@ -152,10 +152,9 @@ def test_bnb_keep_matches_sorted_reference():
 @pytest.mark.parametrize("flat_layout", ["flat", "flat4", "flat5"])
 def test_gate_layouts_equal(flat_layout):
     """Every flat (active-pair list) layout variant - including the
-    single-stage bisect arms flat4/flat5, pinnable in production via
-    --set / _VO_BENCH_LAYOUT - must produce identical cascade results to
-    the dense ((N, C) row-chunk) oracle (ADVICE r3: a regression in the
-    single-stage arms previously only surfaced on TPU bisect runs)."""
+    single-stage arms flat4/flat5, selectable in production via --set
+    gate_layout=... - must produce identical cascade results to the dense
+    ((N, C) row-chunk) oracle."""
     import dataclasses
 
     from edge_based_visual_odometry_tpu.io import synthetic as S
@@ -182,8 +181,8 @@ def test_gate_layouts_equal(flat_layout):
 def test_flatten_active_overflow_targets_distinct():
     """Compaction scatter safety when actives exceed capacity: every
     scatter target must be distinct even for dropped entries
-    (unique_indices=True is a promise; collisions are UB the TPU compiler
-    has miscompiled). Regression for the code-review finding: overflow
+    (unique_indices=True is a promise; a collision is undefined behaviour
+    that a backend compiler has miscompiled). Regression for the code-review finding: overflow
     cumsum positions used to collide with inactive OOB targets."""
     N, C, cap = 8, 8, 16
     cmask = jnp.ones((N, C), bool)          # 64 actives >> cap=16

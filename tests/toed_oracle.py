@@ -3,7 +3,7 @@
 Implements the exact semantics of /root/reference/src/toed/cpu_toed.cpp
 (convolve_img :122-376, non_maximum_suppresion :386-582) as
 straightforwardly as possible - scalar loops for NMS, direct tap summation
-for the convolution - to serve as the golden model for the TPU kernels.
+for the convolution - to serve as the golden model for the device kernels.
 
 The filter taps below are the reference's hard-coded arrays
 (cpu_toed.cpp:143-160), kept verbatim as golden DATA so the oracle is
